@@ -9,6 +9,9 @@ ROS/Gazebo:
       |  <--- UDP --- MPC_MOTORS_CMD (id 368)   solver thread (doorbell)
 
 Usage:  python examples/closed_loop_sim.py [--seconds 4] [--cpu]
+
+``fly(parse_args([...]))`` runs the same flight in the calling process and
+returns its result (``chip_smoke.py`` does so on the GPU).
 """
 import argparse
 import os
@@ -24,7 +27,7 @@ ensure_compile_cache()
 import numpy as np
 
 
-def main():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=6.0)
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")
@@ -69,8 +72,18 @@ def main():
                          "perturbation (ct NOT rescaled)")
     ap.add_argument("--wind", type=float, default=0.0,
                     help="with --plant rigid: constant lateral wind, m/s")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    res = fly(parse_args(argv))
+    return 0 if res["ok"] else 1
+
+
+def fly(args) -> dict:
+    """Fly one closed loop; prints the example's report and returns
+    ``{"ok", "err_mean_m", "err_max_m", "timeout_frac", "watchdog_trips",
+    "max_pickup_idx", "fcu_status", "engaged"}``."""
     import jax
 
     if args.cpu:
@@ -99,15 +112,12 @@ def main():
     traj_cfg = os.path.join(here, f"configs/{args.vehicle}_traj_mpc.yaml")
     pos_cfg = os.path.join(here, f"configs/{args.vehicle}_posctrl_mpc.yaml")
     if args.solver != "apg" or args.deadline_ms or args.particles:
-        # Inject the solver family / deadline into temp copies of the
-        # shipped configs; load_yaml_config already resolves the relative
-        # asset paths.
-        import tempfile
-        import yaml as _yaml
-
+        # Inject the solver family / deadline into parsed copies of the
+        # shipped configs (the engine takes config mappings as well as
+        # paths); load_yaml_config already resolves the relative asset
+        # paths.
         from sde4mbrl_px4_tpu.io.config import load_yaml_config
 
-        tmpdir = tempfile.TemporaryDirectory(prefix=f"{args.solver}_cfg_")
         for src in (traj_cfg, pos_cfg):
             c = load_yaml_config(src)
             c["solver"] = args.solver
@@ -123,18 +133,15 @@ def main():
                 ckpt = os.path.join(pol_dir,
                                     f"{args.vehicle}_{kind}_policy.pkl")
                 if not os.path.exists(ckpt):
-                    print(f"missing {ckpt} — run examples/policy_distill.py "
-                          f"first to train the checkpoints", file=sys.stderr)
-                    return 1
+                    raise FileNotFoundError(
+                        f"missing {ckpt} — run examples/policy_distill.py "
+                        f"first to train the checkpoints")
                 c["policy"] = {"params_path": ckpt,
                                "refine_iters": args.refine_iters}
-            dst = os.path.join(tmpdir.name, os.path.basename(src))
-            _yaml.safe_dump({k: v for k, v in c.items()
-                             if not k.startswith("_")}, open(dst, "w"))
             if src == traj_cfg:
-                traj_cfg = dst
+                traj_cfg = c
             else:
-                pos_cfg = dst
+                pos_cfg = c
 
     print(f"== compiling engine (two MPC solvers, {args.solver}) ==", flush=True)
     node = SDEControlNode(
@@ -291,11 +298,15 @@ def main():
     ok = errs.mean() < 0.35 and fcu.status == FCUSim.MPC_ON
     if args.seconds >= 30:
         # endurance-soak gates: timeout-tick budget <= 2% during tracking
-        # and plan staleness <= 1 control index (docs/PERFORMANCE.md soak
-        # matrix; see the counter comment above for why not zero-trips)
+        # and plan staleness <= 1 control index (see the counter comment
+        # above for why not zero-trips)
         ok = ok and to_frac <= 0.02 and max_pickup_idx <= 1
     print("RESULT:", "PASS" if ok else "FAIL")
-    return 0 if ok else 1
+    return {"ok": bool(ok), "err_mean_m": float(errs.mean()),
+            "err_max_m": float(errs.max()), "timeout_frac": float(to_frac),
+            "watchdog_trips": watchdog_trips,
+            "max_pickup_idx": max_pickup_idx, "fcu_status": fcu.status,
+            "engaged": fcu.status == FCUSim.MPC_ON}
 
 
 if __name__ == "__main__":

@@ -1,17 +1,17 @@
 #!/usr/bin/env python
 """Fleet serving: one accelerator flying a swarm of simulated vehicles.
 
-The reference runs ONE vehicle per controller process; the TPU-native
-scale-out serves a FLEET from one chip — every vehicle's receding-horizon
+The reference runs ONE vehicle per controller process; the accelerator
+scale-out serves a FLEET from one card — every vehicle's receding-horizon
 solve is one row of a dp-sharded batched program (parallel/fleet.py), warm
 starts device-resident, plans pipelined (tick k dispatched while tick
 k-1's plans stream home). This demo closes the loop for B simulated iris
 vehicles simultaneously: each gets its own hold target on a circle, each
 is stepped by its own plant using its own plan.
 
-On the v5e this sustains hundreds of vehicles inside the 50 ms control
-period (bench.py: ~11-12k solves/s/chip at B=256 with 50-iteration
-solves; this demo's default budget is the shipped config's 100 iterations).
+The tick busy time it prints is the budget to hold against the 50 ms
+control period (the demo's default solve budget is the shipped config's
+100 iterations).
 
 Usage: python examples/fleet_serving.py [--vehicles 64] [--seconds 8] [--cpu]
 """

@@ -12,7 +12,7 @@ framework's own components:
     this process                              subprocess (launch tier)
     ------------                              ----------------------
     FCUSim + SimVehicle (plant + PX4          SDEControlNode
-      position-loop stand-in)                   (TPU/accelerator solves)
+      position-loop stand-in)                   (GPU solves)
         | MPC_FULL_STATE (367)                      ^  367 only
         v                                           |
     Router (io/router.py, router_sitl.conf) -------+
@@ -101,7 +101,6 @@ mpc_report_dt: 1.0
         f.write(launch_cfg)
         launch_path = f.name
     env = dict(os.environ)
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(here, ".jax_cache"))
     proc = subprocess.Popen(
         [sys.executable, "-m", "sde4mbrl_px4_tpu.launch", launch_path],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,

@@ -182,8 +182,7 @@ def main():
         m_mean, m_max = fly_mpc(mpc, RigidBodyPlant(p), args.seconds)
         # The integrator needs its convergence time: run the adaptive
         # cell longer and measure its STEADY window (the estimator fully
-        # removes the bias by ~10 s — transient profile in
-        # docs/PERFORMANCE.md).
+        # removes the bias by ~10 s).
         a_mean, a_max = fly_mpc(mpc, RigidBodyPlant(p), 2.5 * args.seconds,
                                 adapt=True, settle=2.0 * args.seconds)
         row = {"cell": name, "perturbation": pert,

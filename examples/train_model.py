@@ -18,10 +18,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
+from sde4mbrl_px4_tpu.compile_cache import ensure_compile_cache  # noqa: E402
+
+ensure_compile_cache()
 
 
 def main():

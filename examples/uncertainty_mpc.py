@@ -18,10 +18,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
+from sde4mbrl_px4_tpu.compile_cache import ensure_compile_cache  # noqa: E402
+
+ensure_compile_cache()
 
 
 def main():
@@ -87,7 +86,7 @@ def main():
 
     # -- variance reduction + scenario robustness (framework extensions) ----
     # antithetic: true — paired (z, -z) sample paths, same particle budget,
-    # far lower cost-estimator noise (docs/PERFORMANCE.md);
+    # far lower cost-estimator noise (tests/test_rollout.py);
     # initial_state_std — each particle starts from its own state-estimate
     # draw, pricing estimator noise into the plan.
     for label, extra in (

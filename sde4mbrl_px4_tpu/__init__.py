@@ -1,13 +1,12 @@
-"""sde4mbrl_px4_tpu — TPU-native neural-SDE MPC framework.
+"""sde4mbrl_px4_tpu — accelerator-native neural-SDE MPC framework.
 
 A from-scratch re-design of the capabilities of the reference
 ``wuwushrek/sde4mbrl_px4`` stack (learning-based receding-horizon MPC for
-PX4 multirotors) as an idiomatic JAX/XLA/Pallas/pjit framework:
+PX4 multirotors) as an idiomatic JAX/XLA/pjit framework:
 
 - L0 ``core``:      quaternion / rotation / frame (ENU<->NED) math
 - L1 ``models``:    neural-SDE vehicle models (iris quad, hexa), checkpoints
-- L2 ``ops``:       Euler-Maruyama rollout (lax.scan + vmapped particles,
-                    fused Pallas kernels for the hot path)
+- L2 ``ops``:       Euler-Maruyama rollout (lax.scan + batched particles)
 - L3 ``cost``:      tracking/slew/uncertainty cost assembly
 - L4 ``solver``:    APG trajectory optimizer (Nesterov momentum + Armijo
                     linesearch + box projection) as a single XLA program

@@ -6,7 +6,7 @@ comparison controller (reference
 §2.4):
 
 - :func:`geometric_control` — pure JAX, jittable/vmappable (batched
-  baseline rollouts on TPU, e.g. as the comparison controller inside the
+  baseline rollouts on the accelerator, e.g. as the comparison controller inside the
   closed-loop simulator);
 - :class:`NativeGeometricController` — ctypes binding onto the C++
   implementation (``csrc/geometric_controller.cpp``), the real-time host
@@ -58,10 +58,9 @@ class GeoParams(NamedTuple):
     @staticmethod
     def from_yaml(path: str) -> "GeoParams":
         """Flat key:value config (reference ``launch/iris_geoctrl.yaml``)."""
-        import yaml
+        from sde4mbrl_px4_tpu.io.config import load_yaml
 
-        with open(os.path.expanduser(path)) as f:
-            d = yaml.safe_load(f) or {}
+        d = load_yaml(path) or {}
         base = GeoParams()
         return GeoParams(
             attctrl_tau=float(d.get("attctrl_tau", base.attctrl_tau)),

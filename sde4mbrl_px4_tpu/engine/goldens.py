@@ -6,10 +6,10 @@ needs the exact same pinned replay to run in three places:
 - ``tests/test_goldens_flagship.py`` — CPU f32 (the reference's
   verification arithmetic, ``sde_control.py:6``), compared against the
   committed traces;
-- ``bench.py`` golden-parity leg — the SAME replay through the TPU
-  mega-kernel path (``RecedingHorizonController`` on the chip), so the
-  program that actually flies is value-checked on hardware against the
-  committed CPU traces (VERDICT r4 weak #1);
+- ``chip_smoke.py`` golden-parity phase and ``bench.py``'s golden leg —
+  the SAME replay through ``RecedingHorizonController`` on the GPU, so
+  the program that actually flies is value-checked on hardware against
+  the committed CPU traces;
 - golden REGENERATION (``SDE4MBRL_REGEN_GOLDEN=1``).
 
 Replays are deterministic by construction: pinned seeds, pinned plant
@@ -38,7 +38,8 @@ from sde4mbrl_px4_tpu.core.types import (
 )
 
 __all__ = ["golden_dir", "fresh", "replay_traj", "replay_pos",
-           "replay_engagement", "replay_solver_family", "SOLVER_FAMILIES"]
+           "replay_engagement", "replay_solver_family", "family_config",
+           "SOLVER_FAMILIES"]
 
 
 def golden_dir(repo_root: str) -> str:
@@ -196,16 +197,8 @@ SOLVER_FAMILIES = {
 }
 
 
-def replay_solver_family(repo_root: str, family: str, n: int = 4,
-                         traj_t0: float = 3.0) -> np.ndarray:
-    """Pinned-seed replay of one solver family's raw (reset, mpc) pair:
-    n warm receding-horizon solves along the trajectory (or a pinned
-    offset state for posctrl), recording ``[u_opt[0], num_steps]``."""
-    import jax
-    import jax.numpy as jnp
-
-    from sde4mbrl_px4_tpu.core.types import hover_state as _hover
-    from sde4mbrl_px4_tpu.engine.mpc_loader import make_mpc_from_config
+def family_config(repo_root: str, family: str) -> dict:
+    """The parsed config one solver-family golden replays."""
     from sde4mbrl_px4_tpu.io.config import load_yaml_config
 
     spec = SOLVER_FAMILIES[family]
@@ -216,7 +209,22 @@ def replay_solver_family(repo_root: str, family: str, n: int = 4,
         for p in parts[:-1]:
             blk = blk[p]
         blk[parts[-1]] = val
-    cfg, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(cfg)
+    return cfg
+
+
+def replay_solver_family(repo_root: str, family: str, n: int = 4,
+                         traj_t0: float = 3.0) -> np.ndarray:
+    """Pinned-seed replay of one solver family's raw (reset, mpc) pair:
+    n warm receding-horizon solves along the trajectory (or a pinned
+    offset state for posctrl), recording ``[u_opt[0], num_steps]``."""
+    import jax
+    import jax.numpy as jnp
+
+    from sde4mbrl_px4_tpu.core.types import hover_state as _hover
+    from sde4mbrl_px4_tpu.engine.mpc_loader import make_mpc_from_config
+
+    cfg, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(
+        family_config(repo_root, family))
     dt = float(cfg["_time_steps"][0])
     rng = jax.random.PRNGKey(0)
     if sft is not None:

@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is manual wall-clock timing exported
 through OptMPCState (SURVEY.md §5 "Tracing/profiling"). This module keeps
-that telemetry as the stable schema and adds the TPU-native tooling on top:
+that telemetry as the stable schema and adds device tooling on top:
 
 - :func:`trace` — context manager around ``jax.profiler`` producing a
   TensorBoard-loadable device trace of whatever runs inside;
@@ -22,25 +22,21 @@ __all__ = ["trace", "SolveTimer"]
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/sde4mbrl_trace"):
+def trace(log_dir: str):
     """Device-level profiler trace: ``with trace("/tmp/t"): solve(...)``.
 
-    View with TensorBoard's profile plugin or xprof. Falls back to a no-op
-    if the profiler cannot start (e.g. unsupported backend).
+    View with TensorBoard's profile plugin or xprof, or read the
+    ``.xplane.pb`` with ``jax.profiler.ProfileData``. A profiler that
+    cannot start raises: a timing window that silently traced nothing
+    would read as an empty (idle) device.
     """
     import jax
 
-    started = False
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception:
-        pass
+    jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
     finally:
-        if started:
-            jax.profiler.stop_trace()
+        jax.profiler.stop_trace()
 
 
 class SolveTimer:

@@ -22,7 +22,7 @@ Wires the pieces into the reference's runtime topology
 Divergence from the reference, by design: the solver runs in a THREAD, not
 a forked process. The reference needed a process because its CPU-pinned
 solve holds the GIL (``sde_control.py:6``); here the solve executes on the
-TPU and the dispatching thread releases the GIL. The mailbox protocol is
+accelerator and the dispatching thread releases the GIL. The mailbox protocol is
 unchanged (and cross-process capable — the native POSIX segment works
 between processes for a multi-process deployment).
 """
@@ -68,7 +68,7 @@ class SDEControlNode:
         # (never blocks on the device); a collector thread publishes each
         # plan the moment its solve completes. Plan age stays = solve
         # latency + transfer (same as blocking mode), while the dispatch
-        # thread is free to take the next doorbell — on a TPU this overlaps
+        # thread is free to take the next doorbell — on an accelerator this overlaps
         # the host transfer with the next dispatch. In-flight solves are
         # capped at 1 by default (freshness first: overlapped dispatches
         # serialize on the device and AGE every published plan by a full
@@ -84,9 +84,9 @@ class SDEControlNode:
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         # Disengaged ('none' mode) keep-warm rate divider: the reference
-        # solves on every doorbell even when no commands are consumed; on a
-        # TPU each of those is ~12-50 ms of device time. N>1 solves every
-        # Nth disengaged doorbell (default 1 = reference parity).
+        # solves on every doorbell even when no commands are consumed, each
+        # a full solve of device time. N>1 solves every Nth disengaged
+        # doorbell (default 1 = reference parity).
         self.idle_solve_div = int(os.environ.get("SDE4MBRL_IDLE_SOLVE_DIV", "1"))
         self._idle_ticks = 0
         self.now_fn = now_fn

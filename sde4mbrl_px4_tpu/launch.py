@@ -21,14 +21,13 @@ import sys
 import time
 from typing import Any, Dict
 
-import yaml
+from sde4mbrl_px4_tpu.io.config import load_yaml
 
 __all__ = ["launch_from_file", "main"]
 
 
 def _load(path: str) -> Dict[str, Any]:
-    with open(os.path.expanduser(path)) as f:
-        cfg = yaml.safe_load(f)
+    cfg = load_yaml(path)
     cfg["_dir"] = os.path.dirname(os.path.abspath(path))
     return cfg
 

@@ -12,8 +12,8 @@ must close that loop — this module fits the physics-constrained SDE of
   the learned diffusion as the (state-dependent) predictive scale on the
   velocity states — jointly identifies drift residual, motor gains, and
   diffusion magnitude;
-- TPU-first: windows are batched into one big leading dimension through
-  the model (MXU-shaped), the whole update step is one jitted program
+- accelerator-first: windows are batched into one big leading dimension
+  through the model (one wide matmul per layer), the whole update step is one jitted program
   with donated optimizer state, and the batch axis shards over the mesh's
   ``dp`` axis for multi-chip training (``parallel/mesh.py``).
 

@@ -3,7 +3,7 @@
 A small MLP that maps (current state, reference window) directly to the
 full H-step control plan in ONE forward pass — the receding-horizon solve
 the reference runs 200 APG iterations for (``launch/iris_sitl_traj_mpc.yaml:60``)
-collapsed into three MXU matmuls. Trained by distilling converged APG
+collapsed into three matmuls. Trained by distilling converged APG
 solves (``learning/distill.py``); served as a config-selectable solver
 family (``solver: policy``, ``engine/mpc_loader.py``) so it rides the same
 engine, telemetry, mesh, and fleet machinery as the optimizing solvers.
@@ -11,9 +11,9 @@ engine, telemetry, mesh, and fleet machinery as the optimizing solvers.
 This is a capability the reference does not have; its closest analogue is
 the learned-dynamics checkpoint the reference consumes
 (``learned_model_params``, ``launch/iris_sitl_traj_mpc.yaml:3``) — here the
-*controller itself* is learned, amortizing the solve. TPU-first rationale:
+*controller itself* is learned, amortizing the solve. Rationale:
 one policy evaluation is pure (B, feat)×(feat, hidden) matmul work — the
-MXU-shaped regime the serial APG horizon never reaches — so per-call
+wide-matmul regime the serial APG horizon never reaches — so per-call
 latency drops below the rollout floor and fleet width scales with batch.
 
 Feature design (translation-invariant, solver/NED frame):

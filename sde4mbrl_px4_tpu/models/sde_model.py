@@ -15,7 +15,7 @@ with kinematics and the quaternion stays near S³ between projections).
 
 Everything is a pure function of a parameter pytree — ``vmap`` over
 particles, ``grad`` through rollouts, shardable with ``pjit``. MLP layers
-are sized (64 hidden) so a batched particle axis maps onto the MXU.
+are sized (64 hidden); a batched particle axis is the matmul's row dimension.
 
 State: NED/FRD 13-vector (core.types). Control: per-motor thrust in [0,1].
 """
@@ -38,15 +38,18 @@ _G = 9.81
 
 
 def resolve_precision(name) -> jax.lax.Precision:
-    """Map a config string to a matmul precision.
+    """Map a ``matmul_precision`` config string to a matmul precision.
 
-    ``highest`` (default, f32 multi-pass on the MXU) matches the reference's
-    f32-on-CPU numerics for the parity configs; ``default``/``bf16`` uses
-    the MXU's native bf16-input/f32-accumulate path (~4x matmul throughput)
-    — appropriate for large Monte-Carlo particle batches where the Brownian
-    sampling noise dominates bf16 rounding (``engine/mpc_loader.py`` picks
-    it automatically for ``num_particles`` > 128; override with the
-    ``matmul_precision`` config key).
+    - ``highest`` / ``float32`` (and an absent key): full float32 products
+      — the reference's f32-on-CPU numerics, used by the parity configs;
+    - ``tf32`` / ``default``: XLA's default precision, which on an NVIDIA
+      Hopper card runs float32 matmuls on the tensor cores with TF32
+      inputs (10-bit mantissa) and float32 accumulation. ``engine/
+      mpc_loader.py`` picks it for ``num_particles`` > 128, where the
+      Brownian sampling noise of the cost estimate dominates the rounding.
+
+    Any other name (``bf16`` included: nothing here casts dot inputs to
+    bfloat16) is a configuration error.
     """
     if isinstance(name, jax.lax.Precision):
         return name
@@ -54,18 +57,19 @@ def resolve_precision(name) -> jax.lax.Precision:
         None: jax.lax.Precision.HIGHEST,
         "highest": jax.lax.Precision.HIGHEST,
         "float32": jax.lax.Precision.HIGHEST,
+        "tf32": jax.lax.Precision.DEFAULT,
         "default": jax.lax.Precision.DEFAULT,
-        "bf16": jax.lax.Precision.DEFAULT,
-        "bfloat16": jax.lax.Precision.DEFAULT,
     }
     key = name if name is None else str(name).lower()
     if key not in table:
         raise ValueError(
-            f"matmul_precision {name!r} not recognized; use one of "
-            "highest/float32 (f32 multi-pass) or default/bf16/bfloat16 "
-            "(bf16-input MXU path)"
+            f"matmul_precision {name!r} not recognized; use highest/float32 "
+            "(float32 products) or tf32/default (TF32 tensor-core inputs, "
+            "float32 accumulation)"
         )
     return table[key]
+
+
 # Diffusion acts on velocity-like states only: v (3) + omega (3).
 _DIFF_DIM = 6
 _FEAT_DIM_BASE = 10  # v(3) + omega(3) + R_z row(3) + 1 spare for padding alignment
@@ -88,8 +92,8 @@ def mlp_apply(params: Dict[str, Any], h: jax.Array) -> jax.Array:
     """Tiny MLP: stacked dense layers with swish, linear head.
 
     ``params`` = {"w0","b0","w1","b1",...}; matmuls use
-    ``preferred_element_type=float32`` so the MXU accumulates in f32 even if
-    weights are stored in bf16.
+    ``preferred_element_type=float32`` so products accumulate in f32 even
+    if weights are stored in a narrower type.
     """
     n_layers = sum(1 for k in params if k.startswith("w"))
     for i in range(n_layers):
@@ -125,9 +129,9 @@ def trunk_apply(params: Dict[str, Any], x: jax.Array, u: jax.Array,
     """Shared two-head network: one trunk, (wrench residual, raw sigma) heads.
 
     The residual force/torque and the diffusion magnitude share the trunk so
-    each EM step costs 3 matmuls instead of 5 — the matmul count is the
-    per-step latency driver on TPU (~4us issue latency per small matmul;
-    measured, see ops/pallas). ``precision``: see :func:`resolve_precision`.
+    each EM step costs 3 matmuls instead of 5 — at these widths each small
+    matmul costs a fixed issue latency, so the count sets the per-step
+    cost. ``precision``: see :func:`resolve_precision`.
     """
     h = _feat(x, u)
     net = params["net"]
@@ -166,14 +170,11 @@ def drift_terms(model: NeuralSDE, params: Dict[str, Any], x: jax.Array,
     mix = jnp.asarray(veh.mixing, x.dtype) * jnp.exp(params["motor"]["log_gain"])[:, None]
     # HIGHEST precision is load-bearing here: this is the control-to-wrench
     # map — the entire gradient signal of the solve flows through it, and
-    # the MXU's default bf16 inputs quantize motor commands at ~3e-3
-    # relative, BELOW the per-iteration control updates near convergence.
-    # Measured (round 3, B=64 fleet engagement on v5e): with default
-    # precision the batched XLA solver false-plateaus at 0.3-0.5 m tracking
-    # (atol/rtol early exit at ~10/15 iterations); with HIGHEST it matches
-    # CPU f32 exactly (0.067 m) — the fused kernels always did this dot at
-    # HIGHEST (ops/pallas/bodies.py:136), which is why only the XLA batched
-    # path stalled.
+    # reduced-precision dot inputs (bf16, or TF32 on tensor cores) quantize
+    # motor commands at 1e-3..4e-3 relative, at or BELOW the per-iteration
+    # control updates near convergence: a batched solver then stops early
+    # on atol/rtol with decimetre-scale tracking error that the float32
+    # solve does not have. tests/test_precision.py pins every solve dot.
     wrench = jnp.einsum(
         "ij,...j->...i", mix,
         jnp.broadcast_to(u, x.shape[:-1] + (veh.n_motors,)),

@@ -7,10 +7,10 @@ dt vector ``_time_steps`` built from ``horizon`` / ``num_short_dt`` /
 ``sde_control.py:167``), and Monte-Carlo sample paths via ``num_particles``
 (``iris_sitl_traj_mpc.yaml:52``).
 
-TPU mapping (SURVEY.md §2.15): the horizon is serially dependent, so it
-stays a ``lax.scan`` per device; parallelism lives on the particle axis,
-which is a *leading batch dimension through every model matmul* (not an
-outer vmap), so each EM step is one batched MXU matmul over all particles.
+Accelerator mapping (SURVEY.md §2.15): the horizon is serially dependent,
+so it stays a ``lax.scan`` per device; parallelism lives on the particle
+axis, which is a *leading batch dimension through every model matmul* (not
+an outer vmap), so each EM step is one batched matmul over all particles.
 All Brownian increments are drawn in a single fused RNG call up front —
 counter-based and mesh-independent, so resharding particles never changes
 the sampled paths.
@@ -27,7 +27,11 @@ from sde4mbrl_px4_tpu.core import quaternion as quat
 from sde4mbrl_px4_tpu.models.sde_model import NeuralSDE, drift_fn, diffusion_fn, drift_and_sigma
 
 __all__ = ["make_time_steps", "em_step", "rollout_mean", "rollout_sde",
-           "draw_brownian"]
+           "draw_brownian", "SCAN_UNROLL"]
+
+# ``unroll`` of the horizon ``lax.scan``s below: how many EM steps XLA
+# emits per loop trip. Read at trace time.
+SCAN_UNROLL = 4
 
 
 def draw_brownian(rng: jax.Array, H: int, P: int, dtype=jnp.float32,
@@ -105,7 +109,7 @@ def rollout_mean(
         return x1, x1
 
     u_scan = jnp.moveaxis(u_seq, -2, 0)
-    _, xs = jax.lax.scan(body, x0, (u_scan, time_steps))
+    _, xs = jax.lax.scan(body, x0, (u_scan, time_steps), unroll=SCAN_UNROLL)
     xs = jnp.moveaxis(xs, 0, -2)
     return jnp.concatenate([x0[..., None, :], xs], axis=-2)
 
@@ -174,7 +178,8 @@ def rollout_sde(
         x1 = _renorm_quat(x + dt * f + jnp.sqrt(dt) * sig * z)
         return x1, (x1, sig)
 
-    _, (xs, sigs) = jax.lax.scan(body, x0_b, (u_seq, time_steps, noise))
+    _, (xs, sigs) = jax.lax.scan(body, x0_b, (u_seq, time_steps, noise),
+                                 unroll=SCAN_UNROLL)
     x_paths = jnp.concatenate([x0_b[:, None, :], jnp.moveaxis(xs, 0, 1)], axis=1)
     sigma_paths = jnp.moveaxis(sigs, 0, 1)
     return x_paths, sigma_paths

@@ -1,7 +1,7 @@
 """Batched / sharded MPC solving over the device mesh (L6).
 
 Maps the reference's single-scenario solve loop (one APG solve per state
-tick, ``sde_control.py:365-450``) onto the TPU scale axes
+tick, ``sde_control.py:365-450``) onto the device-mesh scale axes
 (``BASELINE.json`` configs 4-5):
 
 - **Scenario DP**: ``vmap`` the whole ``mpc_fn`` over a leading batch of
@@ -58,12 +58,8 @@ def make_batched_mpc(
     scenarios converge instead of iterating until the globally slowest
     one does.
     """
-    # Scenario-DP uses the XLA solve path: the per-op dispatch overhead that
-    # motivates the fused kernels amortizes across the vmapped batch (256
-    # batched rollouts cost ~2.5x one rollout, measured), and vmap-of-
-    # pallas_call is not exercised.
     _, (reset_fn, mpc_fn), _, bundle = make_mpc_from_config(
-        dict(cfg), convert_to_enu=convert_to_enu, use_pallas=False
+        dict(cfg), convert_to_enu=convert_to_enu
     )
 
     batch = NamedSharding(mesh, P("dp"))

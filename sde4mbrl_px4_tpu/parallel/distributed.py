@@ -1,7 +1,7 @@
 """Multi-host (DCN) execution wiring (L6).
 
 The reference's multi-machine story is MAVLink fan-out over UDP/UART
-(``scripts/router_hexa.conf``); the TPU-native equivalent (SURVEY.md §2.15,
+(``scripts/router_hexa.conf``); the accelerator-native equivalent (SURVEY.md §2.15,
 §5 "Distributed communication backend") is one ``jax.sharding.Mesh``
 spanning every process of a multi-host slice: ``jax.distributed.
 initialize()`` connects the processes, GSPMD inserts the collectives, and
@@ -52,8 +52,8 @@ def initialize_distributed(
 
     Resolution order per field: explicit argument > environment
     (``SDE4MBRL_COORDINATOR`` / ``SDE4MBRL_NUM_PROCESSES`` /
-    ``SDE4MBRL_PROCESS_ID``) > JAX's own cluster auto-detection (TPU pod
-    metadata, SLURM, ...). Returns True when a multi-process runtime was
+    ``SDE4MBRL_PROCESS_ID``) > JAX's own cluster auto-detection (SLURM,
+    ...). Returns True when a multi-process runtime was
     initialized, False for the single-process fallback (no coordinator
     configured anywhere). Idempotent.
     """
@@ -67,7 +67,7 @@ def initialize_distributed(
         process_id = int(os.environ["SDE4MBRL_PROCESS_ID"])
 
     if coordinator_address is None and num_processes is None:
-        # On TPU pods JAX can self-discover; only attempt when requested.
+        # JAX's cluster auto-detection; only attempt when requested.
         if os.environ.get("SDE4MBRL_AUTO_DISTRIBUTED") in ("1", "true"):
             jax.distributed.initialize()
             _INITIALIZED = True

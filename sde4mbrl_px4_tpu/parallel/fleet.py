@@ -1,7 +1,7 @@
 """Fleet serving engine (L6): many vehicles, one accelerator.
 
 The reference controls ONE vehicle per process (`sde_control.py`); the
-TPU-native scale-out is a fleet: B vehicles' receding-horizon solves run as
+accelerator scale-out is a fleet: B vehicles' receding-horizon solves run as
 one dp-sharded batched program per control tick (`parallel/batched.py`),
 with warm starts, RNG streams and plan buffers device-resident across
 ticks (donated, no HBM churn) and the same pipelined dispatch pattern as
@@ -9,9 +9,8 @@ the single-vehicle engine (`engine/controller.py`): dispatch tick k,
 stream tick k-1's plans host-ward in the background, collect them without
 a synchronous device round trip.
 
-Measured scale (v5e, one chip, iris posctrl, 50-iteration solves):
-~12k solves/s/chip at B=256 — a 20 Hz control tick serves ~600 vehicles
-per chip at that iteration budget (`bench.py` batched throughput).
+Throughput on the card: `bench.py`'s batched leg and `chip_smoke.py`'s
+fleet phase (ms per tick at B=64) measure it.
 
 Multi-host: pass a process-spanning mesh (``parallel.distributed``) and
 per-process state slices via ``jax.make_array_from_process_local_data`` —

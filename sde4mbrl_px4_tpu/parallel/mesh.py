@@ -1,16 +1,16 @@
 """Device-mesh runtime (L6).
 
 The reference's only parallelism is OS-level on one machine (SURVEY.md
-§2.15); its scale-out axes for a TPU build are *initial-state scenarios*
+§2.15); its scale-out axes on accelerators are *initial-state scenarios*
 (DP) and *Monte-Carlo particles* (MC). This module owns the mesh:
 
 - axis ``"dp"``: independent MPC scenarios (batched initial states /
   targets) — embarrassingly parallel, sharded batch dimension;
 - axis ``"mc"``: SDE sample paths within one solve — the per-particle cost
-  is reduced by a mean that XLA lowers to ``psum`` over ICI.
+  is reduced by a mean that XLA lowers to ``psum`` over the device links.
 
 Multi-host: ``jax.distributed.initialize()`` + the same mesh spanning all
-processes (DCN between hosts, ICI within a slice); nothing else changes —
+processes (network between hosts, NVLink within one); nothing else changes —
 GSPMD inserts the collectives.
 """
 from __future__ import annotations

@@ -10,7 +10,7 @@ linesearch (``coef``/``decrease_factor``/``increase_factor``/``maxls``/
 ``input_constr.input_bound``), and ``atol``/``rtol``/
 ``max_no_improvement_iter`` stopping.
 
-TPU-first design (SURVEY.md §7 "hard parts"):
+Accelerator-first design (SURVEY.md §7 "hard parts"):
 - the ENTIRE solve — up to ``max_iter`` gradient steps, each with up to
   ``maxls`` linesearch cost evaluations — is one ``lax.while_loop`` inside
   one jitted XLA program: zero host round-trips in the hot loop;
@@ -39,7 +39,7 @@ __all__ = ["APGConfig", "APGState", "apg_solve", "box_project", "CostOracle"]
 class CostOracle(NamedTuple):
     """Pluggable cost evaluation backend for the solver.
 
-    Lets fused implementations (Pallas kernels, ``ops/pallas``) supply the
+    Lets a fused implementation (e.g. a hand-written kernel) supply the
     three evaluation shapes the APG loop needs without the solver knowing
     how they are computed:
 
@@ -80,11 +80,11 @@ class APGConfig(NamedTuple):
     increase_factor: float = 1.3
     reset_option: str = "increase"  # or "conservative" | "bb"
     maxls: int = 4
-    # TPU execution strategy: evaluate all maxls backtracking candidates in
-    # ONE batched rollout instead of sequentially. Identical accept decision
+    # Execution strategy: evaluate all maxls backtracking candidates in ONE
+    # batched rollout instead of sequentially. Identical accept decision
     # (largest passing stepsize) — backtracking tries candidates largest
-    # first, so "first accept" == "largest passing". The batched rollout
-    # costs about the same as a single one on TPU (op-issue-latency bound).
+    # first, so "first accept" == "largest passing". At these widths a
+    # batched rollout is launch-latency bound and costs about one rollout.
     vector_linesearch: bool = True
     # Adaptive restart scope (O'Donoghue & Candes 2015): on a restart
     # (linesearch failure or cost increase) also reset the momentum COUNTER
@@ -193,8 +193,7 @@ def apg_solve(
     reference's solver state precisely so warm solves resume from it,
     ``sde_control.py:444-450``). Without it every warm solve re-ramps from
     ``init_stepsize`` (0.01) at ×``increase_factor``/iteration — ~13 wasted
-    iterations to reach a workable step on the flight configs (measured on
-    v5e; see ``tools/tpu_decompose_solve.py``). Non-positive values fall
+    iterations to reach a workable step on the flight configs. Non-positive values fall
     back to ``init_stepsize`` (so a fresh ``reset_fn`` state is unchanged).
 
     ``precond``: optional diagonal preconditioner, broadcastable to the

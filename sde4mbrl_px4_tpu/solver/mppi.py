@@ -1,12 +1,12 @@
 """MPPI (Model Predictive Path Integral) solver (L4) — the sampling twin.
 
 A second solver family the reference lacks (its solver is gradient-based
-APG; ``msg/OptMPCState.msg:1``). MPPI is the natural TPU counterpoint:
+APG; ``msg/OptMPCState.msg:1``). MPPI is the natural accelerator counterpoint:
 instead of ~70 sequential gradient iterations it evaluates THOUSANDS of
 perturbed control sequences in parallel — exactly the batched-rollout shape
 the hardware and this framework's cost oracles are already built for
-(``CostOracle.value_batch`` batches candidates through the fused Mosaic
-rollout+cost kernel; the XLA path vmaps the same closure).
+(``CostOracle.value_batch`` vmaps the rollout+cost closure over the
+candidates).
 
 Standard information-theoretic MPPI (Williams et al. 2017):
 
@@ -64,7 +64,7 @@ class MPPIConfig(NamedTuple):
     sequences, standard MPPI practice for physical systems).
     """
 
-    samples: int = 64    # <=128 rides the fused kernel batch oracle on TPU
+    samples: int = 64
     sigma: float = 0.02
     temperature: float = 0.1
     iters: int = 8

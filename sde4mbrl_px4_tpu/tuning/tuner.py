@@ -5,7 +5,7 @@ node, fly SITL, read the plots (`/root/reference/README.md` workflow; the
 solver hyper-parameters live in ``launch/*_mpc.yaml``). On a CPU that is
 the only option — each candidate costs a full SITL session.
 
-On a TPU the candidate axis is just another batch axis: this module flies
+On an accelerator the candidate axis is just another batch axis: this module flies
 an ENTIRE GRID of candidate controllers closed-loop inside one compiled
 program — ``vmap`` over the continuous MPPI knobs (``sigma``,
 ``temperature``, ``noise_beta``; tracer-safe by design, ``solver/mppi.py``),
@@ -87,11 +87,8 @@ def tune_mppi(
     candidate axis shards over it (grid padded to a multiple of the axis
     size; pad rows are discarded from the output).
 
-    The sweep runs through the XLA rollout path (``use_pallas=False``):
-    a candidate grid is throughput-shaped work, exactly the regime where
-    XLA's (batch, feature) matmuls beat the latency-tuned fused kernels
-    (routing rationale in ``engine/mpc_loader.py``), and it vmaps without
-    constraints.
+    A candidate grid is throughput-shaped work: the vmapped rollouts
+    become (batch, feature) matmuls.
     """
     import jax
     import jax.numpy as jnp
@@ -116,7 +113,7 @@ def tune_mppi(
     # the trajectory sampler / setpoint geometry. The traced builds inside
     # ``score`` reuse the same config dict semantics.
     cfg_probe, _, state_from_traj, _ = make_mpc_from_config(
-        dict(base), convert_to_enu=convert_to_enu, use_pallas=False)
+        dict(base), convert_to_enu=convert_to_enu)
     dt = float(cfg_probe["_time_steps"][0])
 
     if has_traj:
@@ -141,7 +138,7 @@ def tune_mppi(
         # Closure build happens at trace time; the host-side CSV table is
         # pre-parsed (probe build) and handed in as ``state_from_traj``.
         _, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(
-            dict(base), convert_to_enu=convert_to_enu, use_pallas=False,
+            dict(base), convert_to_enu=convert_to_enu,
             mppi_params=mp, state_from_traj=state_from_traj)
         st = reset_fn(x0, rng, x0)
 
@@ -280,7 +277,7 @@ def tune_cost_weights(
     base = dict(cfg)
     has_traj = bool(base.get("trajectory_path"))
     cfg_probe, _, state_from_traj, bundle = make_mpc_from_config(
-        dict(base), convert_to_enu=convert_to_enu, use_pallas=False)
+        dict(base), convert_to_enu=convert_to_enu)
     dt = float(cfg_probe["_time_steps"][0])
     base_cp = bundle.cost_params
     model, params = bundle.model, bundle.params
@@ -302,7 +299,7 @@ def tune_cost_weights(
             perr=base_cp.perr * hp[0], verr=base_cp.verr * hp[1],
             qerr=base_cp.qerr * hp[2], werr=base_cp.werr * hp[3])
         _, (reset_fn, mpc_fn), sft, _ = make_mpc_from_config(
-            dict(base), convert_to_enu=convert_to_enu, use_pallas=False,
+            dict(base), convert_to_enu=convert_to_enu,
             cost_params_override=cp, state_from_traj=state_from_traj)
         rng_solver, rng_plant = jax.random.split(rng)
         st = reset_fn(x0, rng_solver, x0)

@@ -90,10 +90,22 @@ def test_solve_timer_stats():
 
 
 def test_trace_context_noop_safe(tmp_path):
+    """The trace context writes a device trace of its body, and a profiler
+    that cannot start (here: one is already running) raises instead of
+    silently timing nothing."""
+    import glob
+
+    import jax.numpy as jnp
+
     from sde4mbrl_px4_tpu.engine.profiling import trace
 
     with trace(str(tmp_path / "tr")):
-        pass  # must not raise even if the profiler can't start
+        jnp.ones(8).block_until_ready()
+        with pytest.raises(Exception):
+            with trace(str(tmp_path / "nested")):
+                pass
+    assert glob.glob(str(tmp_path / "tr" / "**" / "*.xplane.pb"),
+                     recursive=True)
 
 
 def test_trajgen_csv_feeds_native_follower(tmp_path):

@@ -66,30 +66,30 @@ def test_matmul_precision_validation():
     from sde4mbrl_px4_tpu.models.sde_model import resolve_precision
     import jax
 
-    assert resolve_precision("bf16") == jax.lax.Precision.DEFAULT
+    assert resolve_precision("tf32") == jax.lax.Precision.DEFAULT
     assert resolve_precision("float32") == jax.lax.Precision.HIGHEST
-    with pytest.raises(ValueError, match="matmul_precision"):
-        resolve_precision("fp8")
+    # bf16 names a cast nothing performs: refused, not silently TF32
+    for bad in ("fp8", "bf16"):
+        with pytest.raises(ValueError, match="matmul_precision"):
+            resolve_precision(bad)
 
 
-def test_pallas_chunk_config_key(repo_root):
-    """pallas_chunk forces the chunked fused path for large P (interpret
-    mode here; the on-chip trade is documented in engine/mpc_loader.py)."""
-    cfg = load_yaml_config(os.path.join(repo_root, "configs", "iris_posctrl_mpc.yaml"))
-    cfg["num_particles"] = 8
-    cfg["pallas_chunk"] = 4
-    cfg["apg_mpc"]["max_iter"] = 2
-    cfg["apg_mpc"]["max_no_improvement_iter"] = 2
-    cfg, fns, sft, b = make_mpc_from_config(dict(cfg), use_pallas="interpret")
-    reset_fn, mpc_fn = fns
-    import jax
-    from sde4mbrl_px4_tpu.core.types import hover_state
-
-    x = jax.numpy.asarray(hover_state())
-    rng = jax.random.PRNGKey(0)
-    st = reset_fn(x, rng, x)
-    u, st2, rng2, xe = mpc_fn(x, rng, st, 0.0, x)
-    assert np.isfinite(np.asarray(u)).all()
+@pytest.mark.parametrize("via", ["file", "mapping"])
+def test_pallas_chunk_config_key(repo_root, tmp_path, via):
+    """pallas_chunk selected the removed fused-kernel chunking: a config
+    that still sets it is refused (file loader and in-memory factory alike)
+    instead of flying a different code path than it asks for."""
+    src = os.path.join(repo_root, "configs", "iris_posctrl_mpc.yaml")
+    if via == "file":
+        p = tmp_path / "chunked.yaml"
+        p.write_text(open(src).read() + "pallas_chunk: 4\n")
+        with pytest.raises(ValueError, match="pallas_chunk"):
+            load_yaml_config(str(p))
+    else:
+        cfg = load_yaml_config(src)
+        cfg["pallas_chunk"] = 4
+        with pytest.raises(ValueError, match="pallas_chunk"):
+            make_mpc_from_config(dict(cfg))
 
 
 def test_unknown_key_warns(repo_root, tmp_path):

@@ -216,7 +216,7 @@ def test_collector_survives_failed_collect(node):
     def flaky(entry):
         calls["n"] += 1
         if calls["n"] == 1:
-            raise RuntimeError("injected tunnel failure")
+            raise RuntimeError("injected device-transfer failure")
         return orig(entry)
 
     node.ctrl.collect_entry = flaky

@@ -65,36 +65,6 @@ def test_hexa_solve_and_track(hexa_bundle):
     assert u_np.min() >= 1e-4 - 1e-7 and u_np.max() <= 1.0 + 1e-7
 
 
-def test_hexa_pallas_parity(hexa_bundle):
-    """The fused kernels handle n_u=6 (feature width 15) identically."""
-    from sde4mbrl_px4_tpu.cost.cost import make_cost_fn
-    from sde4mbrl_px4_tpu.ops.pallas.solve_kernels import pallas_cost_oracle
-    from sde4mbrl_px4_tpu.ops.rollout import rollout_sde
-
-    cfg, fns, sft, b = hexa_bundle
-    H, n = 20, 6
-    rng = jax.random.PRNGKey(0)
-    x0 = hover_state().at[1].set(0.2)
-    x_ref = jnp.broadcast_to(hover_state(), (H + 1, 13))
-    noise = jnp.zeros((1, H, 13), jnp.float32)
-    ora = pallas_cost_oracle(b.model, b.params, b.cost_params, b.time_steps,
-                             x0, x_ref, b.cost_params.uref, noise, 1, 4,
-                             interpret=True)
-    cost_fn = make_cost_fn(b.cost_params, b.time_steps)
-
-    def seq_cost(u_seq):
-        xp, sg = rollout_sde(b.model, b.params, x0, u_seq, b.time_steps, rng,
-                             1, deterministic=True)
-        return cost_fn(xp, sg, u_seq, x_ref, b.cost_params.uref)
-
-    u = jax.random.uniform(rng, (H, n), minval=0.2, maxval=0.6)
-    assert float(seq_cost(u)) == pytest.approx(float(ora.value(u)), rel=2e-5)
-    v_x, g_x = jax.value_and_grad(seq_cost)(u)
-    v_p, g_p = ora.value_and_grad(u)
-    np.testing.assert_allclose(np.asarray(g_x), np.asarray(g_p), rtol=5e-4,
-                               atol=5e-5)
-
-
 def test_hexa_controller_pads_to_six(repo_root):
     """The plan pickup pads 4-motor iris plans but passes hexa 6-motor plans
     through unchanged (reference pads to 6 at sde_control.py:302-303)."""

@@ -78,8 +78,7 @@ def test_mppi_config_closed_loop(repo_root):
 
 def test_mppi_composes_with_batched_mesh(repo_root):
     """solver: mppi through make_batched_mpc: B sampling controllers as one
-    dp-sharded program (measured on v5e: 64 controllers at K=64 x 8 rounds =
-    ~21M candidate rollouts/s on one chip)."""
+    dp-sharded program."""
     from sde4mbrl_px4_tpu.io.config import load_yaml_config
     from sde4mbrl_px4_tpu.parallel.batched import make_batched_mpc, make_batch_inputs
     from sde4mbrl_px4_tpu.parallel.mesh import make_mesh

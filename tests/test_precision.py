@@ -1,15 +1,17 @@
 """Every dot the solve's gradient flows through carries explicit HIGHEST
-precision (reference-parity configs).
+precision (reference-parity configs), and each ``matmul_precision`` name
+means what it says on the GPU.
 
-Round-3 regression guard: ONE einsum without a precision argument (the
-motor-mixer control->wrench dot) ran at the MXU's default bf16 input
-precision and false-plateaued the batched TPU solver at 0.3-0.5 m
-tracking (docs/PERFORMANCE.md "bf16 control-sensitivity hole"). CPU tests
-cannot catch that class — precision is a no-op on CPU — so this test
-walks the traced jaxpr instead: statically assert that NO dot_general in
-the compiled solve (or its gradient, scan, while_loop sub-jaxprs) uses
-default precision. Large-P configs intentionally choose bf16
-(``matmul_precision``), so the guard covers the parity configs only."""
+Regression guard: ONE einsum without a precision argument (the
+motor-mixer control->wrench dot) ran at the accelerator's default
+reduced input precision and false-plateaued the batched solver at
+0.3-0.5 m tracking. On an H100 the default for a float32 dot is TF32
+(10-bit mantissa). CPU tests cannot catch that class — precision is a
+no-op on CPU — so this test walks the traced jaxpr instead: statically
+assert that NO dot_general in the compiled solve (or its gradient, scan,
+while_loop sub-jaxprs) uses default precision. Large-P configs
+intentionally choose TF32 (``matmul_precision``), so the guard covers the
+parity configs only."""
 import os
 
 import jax
@@ -78,6 +80,45 @@ def test_solve_dots_carry_explicit_precision(repo_root, solver, extra):
            or (not isinstance(p, tuple) and p != jax.lax.Precision.HIGHEST)]
     assert not bad, (
         f"{len(bad)}/{len(precisions)} dot_general eqns use default/non-"
-        f"HIGHEST precision in the {solver} solve path — on TPU that is "
-        f"bf16 inputs on a gradient-carrying dot (see docs/PERFORMANCE.md "
-        f"'bf16 control-sensitivity hole'): {set(map(str, bad))}")
+        f"HIGHEST precision in the {solver} solve path — on the GPU that "
+        f"is TF32 inputs on a gradient-carrying dot: {set(map(str, bad))}")
+
+
+@pytest.mark.parametrize("name,want", [
+    (None, jax.lax.Precision.HIGHEST),
+    ("highest", jax.lax.Precision.HIGHEST),
+    ("HIGHEST", jax.lax.Precision.HIGHEST),
+    ("float32", jax.lax.Precision.HIGHEST),
+    ("tf32", jax.lax.Precision.DEFAULT),
+    ("default", jax.lax.Precision.DEFAULT),
+    (jax.lax.Precision.HIGH, jax.lax.Precision.HIGH),
+    ("bf16", ValueError),
+    ("bfloat16", ValueError),
+    ("fp8", ValueError),
+])
+def test_resolve_precision_names(name, want):
+    from sde4mbrl_px4_tpu.models.sde_model import resolve_precision
+
+    if want is ValueError:
+        with pytest.raises(ValueError, match="matmul_precision"):
+            resolve_precision(name)
+    else:
+        assert resolve_precision(name) == want
+
+
+@pytest.mark.parametrize("particles,want", [
+    (1, jax.lax.Precision.HIGHEST),
+    (128, jax.lax.Precision.HIGHEST),
+    (512, jax.lax.Precision.DEFAULT),
+])
+def test_default_precision_by_particle_count(repo_root, particles, want):
+    """The loader's default: float32 HIGHEST up to 128 particles, TF32
+    beyond (sampling noise dominates); the bundle reports which."""
+    from sde4mbrl_px4_tpu.engine.mpc_loader import make_mpc_from_config
+    from sde4mbrl_px4_tpu.io.config import load_yaml_config
+
+    cfg = load_yaml_config(os.path.join(repo_root,
+                                        "configs/iris_posctrl_mpc.yaml"))
+    cfg["num_particles"] = particles
+    _, _, _, b = make_mpc_from_config(cfg)
+    assert b.precision == want

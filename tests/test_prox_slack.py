@@ -17,11 +17,8 @@ import pytest
 
 from sde4mbrl_px4_tpu.core.frames import enu2ned
 from sde4mbrl_px4_tpu.core.types import hover_state
-from sde4mbrl_px4_tpu.cost.cost import CostParams, make_cost_fn
+from sde4mbrl_px4_tpu.cost.cost import CostParams
 from sde4mbrl_px4_tpu.engine.mpc_loader import make_mpc_from_config
-from sde4mbrl_px4_tpu.ops.pallas.apg_kernel import pallas_apg_solve
-from sde4mbrl_px4_tpu.ops.pallas.solve_kernels import pallas_cost_oracle
-from sde4mbrl_px4_tpu.ops.rollout import rollout_sde
 
 SC_IDS = [3, 4, 5]          # velocity components
 SC_BOUND = [[-0.3, 0.3], [-0.3, 0.3], [-0.25, 0.25]]
@@ -73,77 +70,6 @@ def test_prox_config_solves(prox_cfg):
     lo = np.asarray([b_[0] for b_ in SC_BOUND])
     hi = np.asarray([b_[1] for b_ in SC_BOUND])
     assert (s >= lo - 1e-6).all() and (s <= hi + 1e-6).all()
-
-
-def test_prox_kernel_parity(prox_cfg, iris_pos_bundle):
-    """Fused oracle kernels (interpret) match the XLA cost on the augmented
-    decision sequence: value, batch, grad."""
-    b = iris_pos_bundle[3]
-    cp = CostParams.from_config(prox_cfg, 4)
-    H, n, m = 20, 4, 3
-    rng = jax.random.PRNGKey(0)
-    x0 = hover_state().at[3].set(0.6)       # violating start
-    x_ref = jnp.broadcast_to(hover_state(), (H + 1, 13))
-    noise = jnp.zeros((1, H, 13), jnp.float32)
-    cost_fn = make_cost_fn(cp, b.time_steps)
-
-    def seq_cost(z_seq):
-        u_seq, s_seq = z_seq[:, :n], z_seq[:, n:]
-        xp, sg = rollout_sde(b.model, b.params, x0, u_seq, b.time_steps, rng,
-                             1, deterministic=True)
-        return cost_fn(xp, sg, u_seq, x_ref, cp.uref, s_seq=s_seq)
-
-    ora = pallas_cost_oracle(b.model, b.params, cp, b.time_steps, x0, x_ref,
-                             cp.uref, noise, 1, 4, interpret=True)
-    rz = jax.random.uniform(jax.random.PRNGKey(3), (H, n + m),
-                            minval=-0.2, maxval=0.8)
-    z = rz.at[:, :n].set(jnp.clip(rz[:, :n], 0.05, 0.95))
-    assert float(seq_cost(z)) == pytest.approx(float(ora.value(z)), rel=2e-5)
-    Z = jnp.stack([z, z * 0.9, z * 1.1])
-    np.testing.assert_allclose(np.asarray(jax.vmap(seq_cost)(Z)),
-                               np.asarray(ora.value_batch(Z)), rtol=2e-5)
-    v_x, g_x = jax.value_and_grad(seq_cost)(z)
-    v_p, g_p = ora.value_and_grad(z)
-    assert float(v_x) == pytest.approx(float(v_p), rel=2e-5)
-    np.testing.assert_allclose(np.asarray(g_x), np.asarray(g_p), rtol=5e-4,
-                               atol=5e-5)
-
-
-@pytest.mark.slow
-def test_prox_mega_solve_parity(prox_cfg, iris_pos_bundle):
-    """Whole-solve mega-kernel matches XLA apg_solve on the augmented
-    problem."""
-    from sde4mbrl_px4_tpu.solver.apg import apg_solve
-
-    b = iris_pos_bundle[3]
-    cp = CostParams.from_config(prox_cfg, 4)
-    H, n, m = 20, 4, 3
-    apg = b.apg_config._replace(max_iter=6, max_no_improvement_iter=6)
-    rng = jax.random.PRNGKey(0)
-    x0 = hover_state().at[3].set(0.6)
-    x_ref = jnp.broadcast_to(hover_state(), (H + 1, 13))
-    noise = jnp.zeros((1, H, 13), jnp.float32)
-    cost_fn = make_cost_fn(cp, b.time_steps)
-    lb_z = jnp.concatenate([b.lb, cp.slack_lo])
-    ub_z = jnp.concatenate([b.ub, cp.slack_hi])
-    z_init = jnp.concatenate(
-        [jnp.broadcast_to(cp.uref, (H, n)) + 0.02, jnp.zeros((H, m))], axis=1
-    )
-
-    def seq_cost(z_seq):
-        u_seq, s_seq = z_seq[:, :n], z_seq[:, n:]
-        xp, sg = rollout_sde(b.model, b.params, x0, u_seq, b.time_steps, rng,
-                             1, deterministic=True)
-        return cost_fn(xp, sg, u_seq, x_ref, cp.uref, s_seq=s_seq)
-
-    st_x = apg_solve(seq_cost, z_init, lb_z, ub_z, apg)
-    st_p = pallas_apg_solve(b.model, b.params, cp, apg, b.time_steps, x0,
-                            x_ref, cp.uref, noise, 1, lb_z, ub_z, z_init,
-                            interpret=True)
-    assert int(st_p.num_steps) == int(st_x.num_steps)
-    np.testing.assert_allclose(np.asarray(st_p.yk), np.asarray(st_x.yk),
-                               rtol=5e-4, atol=5e-5)
-    assert float(st_p.opt_cost) == pytest.approx(float(st_x.opt_cost), rel=5e-4)
 
 
 def test_prox_violation_below_penalty_form(iris_pos_bundle):

@@ -67,8 +67,7 @@ def test_batched_dp_equals_individual_solves(small_cfg):
     u_batched = np.asarray(sol.u_opt)
 
     # standalone solves, same inputs
-    _, (reset_1, mpc_1), _, _ = make_mpc_from_config(dict(small_cfg),
-                                                     use_pallas=False)
+    _, (reset_1, mpc_1), _, _ = make_mpc_from_config(dict(small_cfg))
     for i in range(B):
         x_i = jnp.asarray(xs_np[i])
         st_i = reset_1(x_i, rngs[i], x_i)
@@ -91,8 +90,7 @@ def test_particle_sharded_equals_unsharded(small_cfg):
     cfg["num_particles"] = 4 * mc
 
     reset_p, mpc_p, _ = make_particle_sharded_mpc(dict(cfg), mesh)
-    _, (reset_u, mpc_u), _, _ = make_mpc_from_config(dict(cfg),
-                                                     use_pallas=False)
+    _, (reset_u, mpc_u), _, _ = make_mpc_from_config(dict(cfg))
 
     x0 = hover_state().at[0].set(0.4)
     rng = jax.random.PRNGKey(3)

@@ -71,7 +71,7 @@ def test_traced_config_matches_static(repo_config):
 
     # Hand-run the identical closed loop with the config-baked solver.
     _, (reset_fn, mpc_fn), _, _ = make_mpc_from_config(
-        dict(cfg), use_pallas=False)
+        dict(cfg))
     x = jnp.asarray(hover_state()).at[0].set(1.0)
     xdes = jnp.asarray(hover_state())
     tgt = enu2ned(xdes)

@@ -199,7 +199,7 @@ def live_main(addr: str, out_png: str, refresh_s: float = 1.0,
 
 
 # numpy quaternion->rotation (keeps this tool jax-free: importing jax
-# here would initialize the TPU backend in a plotting subprocess)
+# here would initialize the accelerator backend in a plotting subprocess)
 def _q_to_rotmat(q):
     w, x, y, z = np.asarray(q, np.float64) / max(np.linalg.norm(q), 1e-9)
     return np.array([

@@ -5,11 +5,10 @@ Measures batched MPC solve throughput (solves/s) as the scenario count
 grows over the available device mesh, and weak-scaling efficiency across
 mesh sizes. Runs anywhere:
 
-- one TPU chip: amortization curve (B=1 .. 512 on one device);
+- one accelerator: amortization curve (B=1 .. 512 on one device);
 - virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8
   + --cpu): validates the sharded path and gives a CPU weak-scaling curve;
-- multi-host TPU (future rounds): same script, `jax.distributed.initialize`
-  first.
+- several hosts: same script, `jax.distributed.initialize` first.
 
 Usage: python tools/bench_scaling.py [--cpu] [--max-b 512] [--iters 50]
 """
@@ -21,18 +20,18 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
+from sde4mbrl_px4_tpu.compile_cache import ensure_compile_cache  # noqa: E402
+
+ensure_compile_cache()
 
 
 def process_sweep(counts, b_per_dev, iters, steps, devices_per_proc, out):
-    """Weak-scaling efficiency across 1..N localhost PROCESSES (the DCN
-    proxy without a pod, VERDICT r3 item 6): each count spawns that many
+    """Weak-scaling efficiency across 1..N localhost PROCESSES (a
+    multi-host proxy on one machine): each count spawns that many
     jax.distributed CPU processes, runs a fixed scenarios-per-device
     batched-MPC loop, and records solves/s/device + launch-sync overhead.
-    Emits the curve to ``out`` (SCALING.json — the committed artifact)."""
+    Emits the curve to ``out`` (JSON). Every worker runs on the host CPU
+    (tools/_scaling_worker.py forces it), so no worker opens the GPU."""
     import shutil
     import socket
     import subprocess
@@ -132,7 +131,9 @@ def main():
     ap.add_argument("--process-sweep", default=None,
                     help="comma list of process counts (e.g. 1,2,4,8): "
                          "spawn that many localhost jax.distributed CPU "
-                         "processes each and emit the weak-scaling curve")
+                         "processes each and emit the weak-scaling curve "
+                         "(workers always run on the host CPU, never on "
+                         "the GPU: one JAX process per card)")
     ap.add_argument("--b-per-dev", type=int, default=32,
                     help="process-sweep: scenarios per device (weak scaling)")
     ap.add_argument("--steps", type=int, default=5,

@@ -2,11 +2,10 @@
 """A/B solver-hyperparameter variants on the PINNED headline workload.
 
 The headline chained-solve rate (bench.py::_bench_chained) is
-iteration-bound: ~0.18 ms/APG-iteration on a v5e is the measured Mosaic
-issue floor (docs/PERFORMANCE.md), so solves/s moves 1:1 with the warm
-steps/solve count. Iteration counts are PLATFORM-INDEPENDENT (the
-XLA-path solver and the mega-kernel are parity-tested), so this tool A/Bs
-candidate linesearch/momentum settings on CPU — no TPU time — and reports:
+iteration-bound: a solve costs a fixed part plus a per-APG-iteration
+part, so solves/s moves with the warm steps/solve count. Iteration counts
+are PLATFORM-INDEPENDENT, so this tool A/Bs candidate linesearch/momentum
+settings on CPU — no accelerator time — and reports:
 
 - warm steps/solve on the exact pinned window bench.py times,
 - mean avg_linesearch (candidate evals actually spent),

@@ -53,7 +53,6 @@ def main():
     def deps():
         import jax
         import numpy
-        import yaml  # noqa: F401
         if args.cpu:
             jax.config.update("jax_platforms", "cpu")
         return f"jax {jax.__version__}, numpy {numpy.__version__}"
@@ -115,19 +114,6 @@ def main():
         return f"{len(csvs)} trajectories sample cleanly"
 
     check("trajectories", trajs)
-
-    # -- committed AOT artifacts ---------------------------------------------
-    def aot_fresh():
-        from sde4mbrl_px4_tpu.aot_cache import check_committed_fresh
-
-        ok, reason = check_committed_fresh()
-        if not ok:
-            raise RuntimeError(
-                f"{reason} (fresh-machine bring-up will pay full compiles; "
-                "run `python tools/regen_aot_artifacts.py` on the TPU host)")
-        return reason
-
-    check("committed AOT artifacts", aot_fresh)
 
     # -- device ---------------------------------------------------------------
     def device():
