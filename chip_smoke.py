@@ -45,22 +45,11 @@ PHASES = ("device", "flagship", "hexa", "goldens", "deadline", "closed_loop",
           "fleet")
 FOUR_PHASES = ("device", "four")
 
-# Golden gates (the committed traces are CPU float32 XLA solves):
-# warm-started APG is fp-chaotic — last-ulp differences move converged
-# iterates ~0.01 motor units at near-identical cost — so commands gate at
-# the chaos scale while the converged cost gates tight and the plan pickup
-# index must match exactly.
-U_TOL, C_TOL = 0.03, 0.02
-# The engagement traces chain 42 warm-started solves through the hover ->
-# idle -> trajectory transient, and 17 (hexa) to 27 (iris) of them run into
-# their iteration cap (every none-mode pos solve at 100/100, the first traj
-# ticks at 200/200): the chaos-scale drift of the commands accumulates
-# along the chain (measured on the H100: 0.031 motor units on a converged
-# hexa tick at 0.4 % cost difference). Their commands gate at ENGAGE_U_TOL;
-# the cost gate applies to the converged ticks only (a capped tick's cost
-# is reported, not gated); modes and pickup indices stay exact on every
-# tick. The four flagship traces keep the standard gates on every tick.
-ENGAGE_U_TOL = 0.05
+# Golden gates: ``engine/goldens.gate_trace`` (commands within 0.03 motor
+# units and converged costs within 2 % of the committed CPU float32 traces,
+# each widened per tick by the CPU reference's own spread under ulp-scale
+# input perturbation; the hexa's commands reported, not gated; pickup
+# indices and engagement modes exact).
 TRACK_TOL_M = 0.15
 
 
@@ -181,33 +170,6 @@ def phase_tracking(cfg_path: str, n_solves: int, cache_dir: str,
 # ------------------------------------------------------------------ phase 3
 
 
-def _gate_trace(name, tr, costs, ref, precision, rows, capped=None):
-    """Per-tick gates of one controller trace; ``capped[k]`` marks ticks
-    whose solve hit its iteration cap on the card (engagement traces,
-    which gate commands at ENGAGE_U_TOL)."""
-    import numpy as np
-
-    u_tol = U_TOL if capped is None else ENGAGE_U_TOL
-    if capped is None:
-        capped = np.zeros(len(tr), bool)
-    du_t = np.abs(tr[:, :6] - ref["trace"][:, :6]).max(axis=1)
-    dc_t = (np.abs(costs - ref["costs"])
-            / np.maximum(np.abs(ref["costs"]), 1e-6))
-    conv = ~capped
-    idx_ok = bool((tr[:, 10] == ref["trace"][:, 10]).all())
-    du_c = float(du_t[conv].max()) if conv.any() else 0.0
-    dc_c = float(dc_t[conv].max()) if conv.any() else 0.0
-    du_x = float(du_t[capped].max()) if capped.any() else 0.0
-    dc_x = float(dc_t[capped].max()) if capped.any() else 0.0
-    ok = max(du_c, du_x) <= u_tol and dc_c <= C_TOL and idx_ok
-    rows.append({"trace": name, "max_du": max(du_c, du_x),
-                 "max_du_converged": du_c, "cost_rel_converged": dc_c,
-                 "capped_ticks": int(capped.sum()), "ticks": len(capped),
-                 "max_du_capped": du_x, "cost_rel_capped": dc_x,
-                 "gate_u": u_tol, "idx_exact": idx_ok,
-                 "precision": precision, "pass": ok})
-
-
 def _replay_capped(c, replay):
     """Run ``replay(c)`` and mark the ticks whose solve hit its solver's
     iteration cap (idle ticks report the trajectory pre-warm's stats)."""
@@ -235,7 +197,14 @@ def _replay_capped(c, replay):
 def phase_goldens(vehicles=("iris", "hexa"), families=None) -> dict:
     """Replay the committed golden traces: per vehicle the pos and traj
     flagship traces and the engagement sequence, then the solver-family
-    traces (MPPI K=64, policy, 512-path antithetic)."""
+    traces (MPPI K=64, policy, 512-path antithetic).
+
+    Each tick's gates are widened by the committed spread of the CPU
+    reference under ulp-scale input perturbation. The over-actuated hexa
+    (6 motors, 4 wrench axes) has ticks where a 1-ulp input change alone
+    moves a converged command by 0.1-0.2 motor units at unchanged cost (a
+    jump between two branches with three motors on the upper bound), so
+    its commands are reported and its costs and pickup indices gated."""
     import numpy as np
 
     from sde4mbrl_px4_tpu.engine import goldens as G
@@ -247,25 +216,29 @@ def phase_goldens(vehicles=("iris", "hexa"), families=None) -> dict:
     gold = G.golden_dir(HERE)
     rows = []
     for v in vehicles:
+        spread = G.load_spread(HERE, v)
         c = RecedingHorizonController(_cfg(f"{v}_traj_mpc.yaml"),
                                       _cfg(f"{v}_posctrl_mpc.yaml"),
                                       seed=0, now_fn=lambda: 0.0)
         try:
-            for mode, fn, cm in (("pos", G.replay_pos, c.pos),
-                                 ("traj", G.replay_traj, c.traj)):
-                tr, costs = fn(c)
-                ref = np.load(os.path.join(
-                    gold, f"{v}_{mode}_flagship_trace.npz"))
-                _gate_trace(f"{v}_{mode}_flagship", tr, costs, ref,
-                            str(cm.bundle.precision), rows)
-            (modes, tr, costs), capped = _replay_capped(
-                c, G.replay_engagement)
-            ref = np.load(os.path.join(gold, f"{v}_engagement_trace.npz"))
-            _gate_trace(f"{v}_engagement", tr, costs, ref,
-                        str(c.traj.bundle.precision), rows, capped)
-            if not np.array_equal(modes, ref["modes"].astype(np.int32)):
-                rows[-1]["pass"] = False
-                rows[-1]["modes_exact"] = False
+            for name, replay in G.CONTROLLER_REPLAYS.items():
+                if name == "engagement":
+                    (modes, tr, costs), capped = _replay_capped(
+                        c, G.replay_engagement)
+                else:
+                    (tr, costs), capped = replay(c), None
+                ref = np.load(os.path.join(gold, f"{v}_{name}_trace.npz"))
+                row = {"trace": f"{v}_{name}", **G.gate_trace(
+                    tr, costs, ref, spread[f"{name}_u"],
+                    spread[f"{name}_cost"], capped,
+                    gate_u=c.traj.n_u <= 4)}
+                if name == "engagement":
+                    row["modes_exact"] = bool(np.array_equal(
+                        modes, ref["modes"].astype(np.int32)))
+                    row["pass"] = row["pass"] and row["modes_exact"]
+                cm = c.pos if name == "pos_flagship" else c.traj
+                row["precision"] = str(cm.bundle.precision)
+                rows.append(row)
         finally:
             c.close()
     for fam in families:
@@ -276,7 +249,7 @@ def phase_goldens(vehicles=("iris", "hexa"), families=None) -> dict:
         rows.append({"trace": f"family_{fam}", "max_du": du,
                      "steps": tr[:, -1].tolist(),
                      "steps_golden": ref[:, -1].tolist(),
-                     "precision": str(b.precision), "pass": du <= U_TOL})
+                     "precision": str(b.precision), "pass": du <= G.U_TOL})
     for r in rows:
         print(f"golden {json.dumps(r)}", flush=True)
     bad = [r["trace"] for r in rows if not r["pass"]]
@@ -285,8 +258,11 @@ def phase_goldens(vehicles=("iris", "hexa"), families=None) -> dict:
             "max_du": max(r["max_du"] for r in rows),
             "max_cost_rel_converged": max(
                 (r.get("cost_rel_converged", 0.0) for r in rows)),
-            "gates": {"u": U_TOL, "cost_rel": C_TOL, "idx": "exact",
-                      "u_engagement": ENGAGE_U_TOL}}
+            "gates": {"u": G.U_TOL, "cost_rel": G.C_TOL, "idx": "exact",
+                      "u_max_with_spread": max(
+                          r.get("gate_u_max") or G.U_TOL for r in rows),
+                      "u_reported_only": [r["trace"] for r in rows
+                                          if r.get("gate_u_max", 0) is None]}}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -479,6 +455,7 @@ def phase_four(n_dev: int = 4, batch: int = 256, particles: int = 512,
     import numpy as np
 
     from sde4mbrl_px4_tpu.core.frames import enu2ned
+    from sde4mbrl_px4_tpu.engine.goldens import C_TOL, U_TOL
     from sde4mbrl_px4_tpu.engine.mpc_loader import make_mpc_from_config
     from sde4mbrl_px4_tpu.io.config import load_yaml_config
     from sde4mbrl_px4_tpu.parallel.batched import make_particle_sharded_mpc

@@ -10,7 +10,10 @@ needs the exact same pinned replay to run in three places:
   the SAME replay through ``RecedingHorizonController`` on the GPU, so
   the program that actually flies is value-checked on hardware against
   the committed CPU traces;
-- golden REGENERATION (``SDE4MBRL_REGEN_GOLDEN=1``).
+- golden REGENERATION (``SDE4MBRL_REGEN_GOLDEN=1``), followed by
+  ``tools/golden_spread.py``, which records how far the CPU reference
+  moves under ulp-scale input perturbation (the per-tick widening of the
+  cross-backend gates, :func:`gate_trace`).
 
 Replays are deterministic by construction: pinned seeds, pinned plant
 states, a simulated clock driving the automata, and fresh warm-start
@@ -39,7 +42,23 @@ from sde4mbrl_px4_tpu.core.types import (
 
 __all__ = ["golden_dir", "fresh", "replay_traj", "replay_pos",
            "replay_engagement", "replay_solver_family", "family_config",
-           "SOLVER_FAMILIES"]
+           "SOLVER_FAMILIES", "CONTROLLER_REPLAYS", "U_TOL", "C_TOL",
+           "SPREAD_EPS", "SPREAD_SEEDS", "input_spread", "load_spread",
+           "gate_trace"]
+
+# Cross-backend gates: warm-started APG is fp-chaotic — last-ulp differences
+# move converged iterates ~0.01 motor units at near-identical cost — so
+# commands gate at the chaos scale, the converged cost gates tight and the
+# plan pickup index must match exactly. On ticks where the reference itself
+# is ill-conditioned (see :func:`input_spread`) both gates widen by the
+# reference's own spread on that tick; an over-actuated vehicle's commands
+# are reported, not gated (:func:`gate_trace`).
+U_TOL, C_TOL = 0.03, 0.02
+
+# Relative plant-state perturbations (1 ulp of float32 and up) and seeds per
+# size that :func:`input_spread` replays.
+SPREAD_EPS = (1e-7, 1e-6, 1e-5)
+SPREAD_SEEDS = 16
 
 
 def golden_dir(repo_root: str) -> str:
@@ -178,6 +197,109 @@ def replay_engagement(c, n_none: int = 4, n_idle: int = 10, n_traj: int = 28,
     assert c.overruns.count == overruns0 + 1, "overrun tick was not recorded"
     return (np.asarray(modes, np.int32), np.stack(cmds),
             np.asarray(costs, np.float32))
+
+
+# The three controller replays, each returning ``(cmds, costs)``; the
+# golden of ``name`` for vehicle ``v`` is ``{v}_{name}_trace.npz`` with
+# ``name`` in ``pos_flagship``, ``traj_flagship``, ``engagement``.
+CONTROLLER_REPLAYS = {
+    "pos_flagship": replay_pos,
+    "traj_flagship": replay_traj,
+    "engagement": lambda c: replay_engagement(c)[1:],
+}
+
+
+def _rel(a, ref) -> np.ndarray:
+    return np.abs(a - ref) / np.maximum(np.abs(ref), 1e-6)
+
+
+def input_spread(c, names=tuple(CONTROLLER_REPLAYS), eps=SPREAD_EPS,
+                 seeds: int = SPREAD_SEEDS) -> dict:
+    """Per-tick conditioning of the controller replays on this backend.
+
+    Each replay is run again with every plant state it hands to a solve
+    scaled by ``1 + e * N(0, 1)`` per component, for each ``e`` in ``eps``
+    and ``seeds`` seeds. Returns ``{f"{name}_u": max |du| per tick over
+    motors, f"{name}_cost": max relative cost change per tick}`` against the
+    unperturbed replay: how far the reference moves its own commands and
+    costs under ulp-scale input changes. Ticks whose solve sits on a
+    near-flat or saturated branch (hexa: three motors on the upper bound)
+    jump to another branch there; another backend's rounding does the same.
+    """
+    out = {}
+    solve_once = c.solve_once
+    for name in names:
+        replay = CONTROLLER_REPLAYS[name]
+        tr0, cost0 = replay(c)
+        du = np.zeros(len(tr0), np.float32)
+        dc = np.zeros(len(tr0), np.float32)
+        for e in eps:
+            for s in range(seeds):
+                rs = np.random.RandomState(s)
+
+                def perturbed(x, *a, **k):
+                    x = np.asarray(x, np.float32)
+                    noise = rs.randn(*x.shape).astype(np.float32)
+                    return solve_once(x * (1 + np.float32(e) * noise), *a, **k)
+
+                c.solve_once = perturbed
+                try:
+                    tr, cost = replay(c)
+                finally:
+                    del c.solve_once
+                du = np.maximum(du, np.abs(tr[:, :6] - tr0[:, :6]).max(1))
+                dc = np.maximum(dc, _rel(cost, cost0))
+        out[f"{name}_u"], out[f"{name}_cost"] = du, dc
+    return out
+
+
+def load_spread(repo_root: str, vehicle: str) -> dict:
+    """The committed :func:`input_spread` of one vehicle's replays on the
+    CPU reference (``tools/golden_spread.py`` writes it)."""
+    with np.load(os.path.join(golden_dir(repo_root),
+                              f"{vehicle}_spread.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def gate_trace(tr, costs, ref, spread_u, spread_cost, capped=None,
+               gate_u: bool = True) -> dict:
+    """Per-tick gates of one controller trace against its golden ``ref``
+    (``trace``, ``costs``): commands within ``U_TOL + spread_u``, the cost
+    of every tick whose solve converged within ``C_TOL + spread_cost`` (a
+    tick at its iteration cap, ``capped[k]``, stops on an unconverged
+    iterate: its cost is reported, not gated), pickup indices exact.
+
+    ``gate_u=False`` reports the commands without gating them: for a
+    vehicle with more motors than wrench axes (the 6-motor hexa; 4 axes:
+    thrust and three torques) the commands are not determined by the
+    problem — its CPU reference moves them 0.03-0.19 motor units under a
+    1-ulp input change at unchanged cost (:func:`input_spread`) — so only
+    the cost and the pickup indices say whether the solve is right."""
+    n = len(tr)
+    capped = np.zeros(n, bool) if capped is None else np.asarray(capped)
+    du_t = np.abs(tr[:, :6] - ref["trace"][:, :6]).max(axis=1)
+    dc_t = _rel(costs, ref["costs"])
+    u_gate = U_TOL + np.asarray(spread_u)
+    c_gate = C_TOL + np.asarray(spread_cost)
+    conv = ~capped
+    u_ok = bool((du_t <= u_gate).all()) or not gate_u
+    c_ok = bool((dc_t[conv] <= c_gate[conv]).all())
+    idx_ok = bool((tr[:, 10] == ref["trace"][:, 10]).all())
+    worst = int(np.argmax(du_t - u_gate))
+
+    def _max(a, m):
+        return float(a[m].max()) if m.any() else 0.0
+
+    return {"max_du": float(du_t.max()),
+            "max_du_converged": _max(du_t, conv),
+            "cost_rel_converged": _max(dc_t, conv),
+            "max_du_capped": _max(du_t, capped),
+            "cost_rel_capped": _max(dc_t, capped),
+            "capped_ticks": int(capped.sum()), "ticks": n,
+            "worst_tick": worst, "worst_du": float(du_t[worst]),
+            "worst_gate_u": float(u_gate[worst]),
+            "gate_u_max": float(u_gate.max()) if gate_u else None,
+            "idx_exact": idx_ok, "pass": u_ok and c_ok and idx_ok}
 
 
 # ---------------------------------------------------------------- families

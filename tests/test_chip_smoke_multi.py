@@ -2,15 +2,16 @@
 rehearsed on the CPU: the four-card path on 4 of the test harness's
 virtual CPU devices, the closed loop in slow motion."""
 import chip_smoke as cs
+from sde4mbrl_px4_tpu.engine import goldens as G
 
 
 def test_phase_four_on_virtual_devices():
     res = cs.phase_four(n_dev=4, batch=8, particles=16, fleet_batch=8,
                         ticks=2, max_iter=10)
     assert res["dp"]["allreduce"] == 0
-    assert res["dp"]["max_du"] <= cs.U_TOL
-    assert res["mc"]["max_du"] <= cs.U_TOL
-    assert res["mc"]["cost_rel"] <= cs.C_TOL
+    assert res["dp"]["max_du"] <= G.U_TOL
+    assert res["mc"]["max_du"] <= G.U_TOL
+    assert res["mc"]["cost_rel"] <= G.C_TOL
     assert res["fleet"]["batch"] == 8
 
 
